@@ -2,14 +2,15 @@
 
 The reference handles long recordings only by time-chunking with one
 host-side utterance SCM (tester.py:426-441); `inference/css.py` is the
-streaming TPU-native generalization (BASELINE.json config 5).  This demo
+streaming on-device generalization (BASELINE.json config 5).  This demo
 records its *quality* on a long coherent scene, not just a smoke: a
 60 s synthetic 6-channel 2-speaker mixture is processed block-by-block
 (4 s blocks, running SCMs, adaptive MVDR), with and without cross-fade
 overlap stitching, and scored stage-wise with PIT-SI-SDR.
 
 Run (needs a trained MISO1 checkpoint from train_synthetic.py --save):
-    python examples/css_longform.py --ckpt /tmp/int8_ckpt [--voiced]
+    python examples/train_synthetic.py --voiced --save model_result/synthetic
+    python examples/css_longform.py --ckpt model_result/synthetic [--voiced]
 """
 from __future__ import annotations
 
@@ -24,9 +25,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/misonet_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 from misonet_tpu.config import (
     DatasetConfig,
     ModelConfig,
@@ -39,6 +37,7 @@ from misonet_tpu.metrics import numpy_si_sdr
 from misonet_tpu.models import make_miso1
 from misonet_tpu.ops.stft import stft_scaled
 from misonet_tpu.train import create_train_state, make_optimizer
+from misonet_tpu.utils.cache import enable_compile_cache
 from misonet_tpu.utils.checkpoint import load_checkpoint
 
 
@@ -50,12 +49,13 @@ def pit_si_sdr(est: np.ndarray, refs: np.ndarray) -> float:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--ckpt", default="/tmp/int8_ckpt")
+    ap.add_argument("--ckpt", default="model_result/synthetic")
     ap.add_argument("--seconds", type=float, default=60.0)
     ap.add_argument("--seed", type=int, default=20_000)
     ap.add_argument("--voiced", action="store_true")
     ap.add_argument("--forget", type=float, default=1.0)
     args = ap.parse_args()
+    enable_compile_cache()
 
     stft_cfg = StftConfig()
     ds_cfg = DatasetConfig()

@@ -9,7 +9,7 @@ reverberant 2-speaker data, and reports stage-wise SI-SDR:
     mixture -> MISO1 -> MVDR beamformed -> MISO3 enhanced
 
 This is the self-contained proof that the whole cascade (BASELINE.json
-configs 2-4) learns and composes on TPU.
+configs 2-4) learns and composes on the device.
 
 Run:  python examples/train_cascade.py [--steps1 3000] [--steps3 2000]
       [--miso1-ckpt <dir>]   (reuse a train_synthetic.py checkpoint)
@@ -28,9 +28,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/misonet_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 from misonet_tpu.beamforming.mvdr import mvdr_beamform
 from misonet_tpu.config import ModelConfig, OptimizerConfig, StftConfig
 from misonet_tpu.data.synthetic import synth_mixture
@@ -45,6 +42,7 @@ from misonet_tpu.train import (
     make_optimizer,
     make_separate_wave_train_step,
 )
+from misonet_tpu.utils.cache import enable_compile_cache
 from misonet_tpu.utils.checkpoint import load_checkpoint, save_checkpoint
 
 
@@ -82,16 +80,17 @@ def main() -> None:
         "per-speaker MISO3",
     )
     args = ap.parse_args()
+    enable_compile_cache()
     voiced = not args.noise_sources
 
     stft_cfg = StftConfig()
-    platform = jax.devices()[0].platform
-    compute = "bfloat16" if platform != "cpu" else "float32"
-    mcfg = ModelConfig(compute_dtype=compute)
+    mcfg = ModelConfig()
     miso1 = make_miso1(mcfg)
     miso3 = make_miso3(mcfg)
     num_ch, ref_ch = 6, 0
-    print(f"platform={platform} compute={compute}", flush=True)
+    dev = jax.devices()[0]
+    print(f"device={dev.platform}/{dev.device_kind} "
+          f"compute={mcfg.compute_dtype}", flush=True)
 
     print(f"generating data (voiced={voiced})...", flush=True)
     train = [

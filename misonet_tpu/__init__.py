@@ -1,10 +1,11 @@
-"""misonet_tpu — TPU-native multi-microphone complex spectral mapping framework.
+"""misonet_tpu — multi-microphone complex spectral mapping framework in JAX.
 
-A from-scratch JAX/XLA/Pallas implementation of the MISO1 -> MVDR -> MISO2/3
+A from-scratch JAX/XLA implementation of the MISO1 -> MVDR -> MISO2/3
 speech-separation cascade of Wang et al. 2021 ("Multi-microphone Complex
 Spectral Mapping for Utterance-wise and Continuous Speech Separation",
 IEEE/ACM TASLP vol. 29; arXiv 2010.01703), with the same capabilities as the
-PyTorch reference implementation (yuhogun0908/MISOnet) but designed TPU-first:
+PyTorch reference implementation (yuhogun0908/MISOnet), running on one or
+more NVIDIA GPUs (or the CPU, for tests):
 
   * framed-FFT STFT/iSTFT on device, matching scipy.signal.stft semantics
     (reference: dataloader/data.py:49-66, tester.py:186-198)

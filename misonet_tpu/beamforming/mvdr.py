@@ -1,12 +1,12 @@
 """MVDR beamforming, batched and on device.
 
-TPU-native re-design of the reference's NumPy/LAPACK beamformer
+A batched JAX re-design of the reference's NumPy/LAPACK beamformer
 (reference tester.py:637-794, duplicated at data.py:320-476 and
 tester.py:1071-1228 — one canonical implementation here):
 
-  reference (CPU, float64)             this module (TPU, complex64)
+  reference (host, float64)            this module (device, complex64)
   ---------------------------------    ----------------------------------
-  np.einsum SCM outer product          jnp.einsum -> MXU batched matmul
+  np.einsum SCM outer product          batched real einsums (ceinsum)
   np.linalg.eigh steering (:674)       fixed-iteration power iteration
                                        (only the principal eigenvector is
                                        consumed, tester.py:676-678)
@@ -115,27 +115,26 @@ def phase_correct(d: jnp.ndarray) -> jnp.ndarray:
     return d * phasors[..., None]
 
 
+def loaded_solve(
+    noise_scm: jnp.ndarray, steering: jnp.ndarray, diag_load: float = 1e-6
+) -> jnp.ndarray:
+    """(Phi_n + delta*I)^-1 d for batched [..., M, M] Hermitian systems and
+    [..., M] right-hand sides (reference tester.py:787-788).  Its ops
+    carry the named scope ``loaded_solve`` in profiler traces."""
+    m = steering.shape[-1]
+    with jax.named_scope("loaded_solve"):
+        rn = noise_scm + diag_load * jnp.eye(m, dtype=noise_scm.dtype)
+        return jnp.linalg.solve(rn, steering[..., None])[..., 0]
+
+
 def mvdr_weights(
     steering: jnp.ndarray, noise_scm: jnp.ndarray, diag_load: float = 1e-6
 ) -> jnp.ndarray:
     """w = (Phi_n + delta*I)^-1 d / (d^H (Phi_n + delta*I)^-1 d)
     (reference get_mvdr_beamformer, tester.py:777-791).
 
-    steering [B, F, M], noise_scm [B, F, M, M] -> weights [B, F, M].
-
-    On TPU the Hermitian solve runs through the Pallas batched-Cholesky
-    kernel (ops/pallas/mvdr_solve.py) — complex LU is UNIMPLEMENTED in the
-    TPU backend, and the kernel additionally vectorizes the B*F systems
-    across vector lanes instead of padding each 6x6 matrix to a tile.  CPU
-    keeps the stock LAPACK path."""
-    if jax.default_backend() != "cpu":
-        from misonet_tpu.ops.pallas.mvdr_solve import hermitian_solve_pallas
-
-        numer = hermitian_solve_pallas(noise_scm, steering, diag=diag_load)
-    else:
-        m = steering.shape[-1]
-        rn = noise_scm + diag_load * jnp.eye(m, dtype=noise_scm.dtype)
-        numer = jnp.linalg.solve(rn, steering[..., None])[..., 0]
+    steering [B, F, M], noise_scm [B, F, M, M] -> weights [B, F, M]."""
+    numer = loaded_solve(noise_scm, steering, diag_load)
     denom = ceinsum("...m,...m->...", jnp.conj(steering), numer)
     return numer / denom[..., None]
 

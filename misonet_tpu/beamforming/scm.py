@@ -3,7 +3,7 @@ continuous speech separation (CSS).
 
 The reference handles long utterances by re-STFT'ing the concatenated
 full-utterance estimate and computing one SCM over all frames on the host
-(tester.py:426-441).  For TPU-native long-form processing we instead keep a
+(tester.py:426-441).  For on-device long-form processing we instead keep a
 *running* SCM: per-block partial sums combined exactly (they are sums over
 disjoint frame sets), optionally reduced across devices with psum when
 blocks are sharded over the mesh (SURVEY.md §2.10 item 4, BASELINE.json
@@ -47,7 +47,7 @@ def chunked_scm(blocks: jnp.ndarray, axis_name: str | None = None) -> jnp.ndarra
     """SCM over a stack of blocks [N, C, T, F] (concatenated in time),
     equal to the SCM of the concatenation.  When ``axis_name`` is given the
     partial sums are additionally psum-reduced over that mesh axis, so
-    blocks may be sharded across devices (ICI collective accumulation)."""
+    blocks may be sharded across devices (collective accumulation)."""
     s = ceinsum("nctf,ndtf->fcd", blocks, jnp.conj(blocks))
     t = jnp.asarray(blocks.shape[0] * blocks.shape[2], jnp.float32)
     if axis_name is not None:

@@ -1,7 +1,7 @@
 """Typed configuration for misonet_tpu.
 
 Mirrors the sections of the reference YAML config
-(/root/reference/config/NN_BSS.yml: STFT :72-88, dataloader :90-111, model
+(reference config/NN_BSS.yml: STFT :72-88, dataloader :90-111, model
 plans :113-135, trainer_sp/trainer_en/tester :138-180, optimizer :181-185,
 scheduler :187-191) as frozen dataclasses, loadable from the same YAML layout
 via :func:`load_yaml`.
@@ -10,6 +10,7 @@ via :func:`load_yaml`.
 from __future__ import annotations
 
 import dataclasses
+import re
 from pathlib import Path
 from typing import Any, Sequence
 
@@ -100,26 +101,9 @@ class ModelConfig:
     tcn_blocks: int = 7         # X, dilations 2^0..2^6
     tcn_channels: int = 128
     compute_dtype: str = "bfloat16"   # conv compute precision; stats stay fp32
-    # Compute the U-Net body (trunk convs, DenseBlocks, deconvs and their
-    # InstanceNorms) with the fused Pallas flat-layout kernels
-    # (ops/pallas/dense_flat.py, stencil_flat.py; differentiable via
-    # ops/pallas/flat_grad.py).  "auto" enables it on TPU backends for
-    # geometries the fused kernels support (F = 2^k - 1 frequency ladder,
-    # 8-aligned channels — see models/flat_dense.py::flat_plan_supported;
-    # both the 129-bin SMS-WSJ and 257-bin REVERB plans qualify) and stays
-    # on the plain XLA path elsewhere.  True forces it (non-TPU backends
-    # then need pltpu.force_tpu_interpret_mode()); False disables it.
-    # Numerics match the plain path to bf16 rounding.
-    flat_dense: bool | str = "auto"
-    # Opt-in int8 DenseBlock matmuls on the fused flat path (decode /
-    # inference ONLY — the int8 kernels define no VJP).  IN-normalized
-    # activations quantize with a static power-of-two scale and weights
-    # per-output-row; the ELU/IN epilogue stays float.  See PERF.md r5
-    # for the measured throughput/accuracy trade on v5e.
-    quant_int8: bool = False
     # Shard the TCN bottleneck's time axis over the mesh with halo
     # exchange + collective norm statistics (parallel/tcn_sp.py) — for
-    # long-form utterances whose frame count exceeds one chip (SURVEY.md
+    # long-form utterances whose frame count exceeds one device (SURVEY.md
     # §5 long-context).  Requires passing the mesh to the model factory
     # (make_miso*(cfg, sp_mesh=mesh)); numerics match the local TCN.
     sequence_parallel: bool = False
@@ -201,17 +185,93 @@ def _model_from_yaml(d: dict[str, Any]) -> ModelConfig:
         tcn_channels=int(d.get("tcn_channels", en[-1])),
         tcn_repeats=int(d.get("tcn_repeats", 2)),
         tcn_blocks=int(d.get("tcn_blocks", 7)),
-        flat_dense=d.get("flat_dense", "auto"),
-        quant_int8=bool(d.get("quant_int8", False)),
     )
+
+
+_BOOLS = {"true": True, "yes": True, "on": True,
+          "false": False, "no": False, "off": False}
+_INT = re.compile(r"[-+]?[0-9]+$")
+_FLOAT = re.compile(r"[-+]?([0-9][0-9_]*)?\.[0-9_]*([eE][-+][0-9]+)?$")
+
+
+def _scalar(text: str) -> Any:
+    """One YAML 1.1 plain or quoted scalar, resolved as yaml.safe_load
+    does for the types the config layout uses."""
+    text = text.strip()
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"":
+        return text[1:-1]
+    if text in ("", "~") or text.lower() == "null":
+        return None
+    if text.lower() in _BOOLS:
+        return _BOOLS[text.lower()]
+    if _INT.match(text):
+        return int(text)
+    if _FLOAT.match(text) and text not in (".", "+.", "-."):
+        return float(text.replace("_", ""))
+    return text
+
+
+def _strip_comment(line: str) -> str:
+    """Drop a ``#`` comment that starts the line or follows whitespace,
+    outside quotes."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def parse_yaml(text: str) -> dict[str, Any]:
+    """Parse the YAML subset of the reference config layout: block
+    mappings by indentation, plain/quoted scalars, flow lists such as
+    ``[8, 8]`` or ``[True, 1]``, and ``#`` comments.  Returns what
+    ``yaml.safe_load`` returns for such a document."""
+    root: dict[str, Any] = {}
+    stack: list[tuple[int, dict]] = [(-1, root)]
+    scalar_indent = None   # indent of the previous line if it held a value
+    for lineno, raw in enumerate(text.splitlines(), 1):
+        line = _strip_comment(raw).rstrip()
+        if not line.strip():
+            continue
+        indent = len(line) - len(line.lstrip(" "))
+        key, sep, value = line.strip().partition(":")
+        key, value = key.strip(), value.strip()
+        if not sep or not key or (
+            scalar_indent is not None and indent > scalar_indent
+        ):
+            raise ValueError(f"line {lineno}: not in the supported YAML "
+                             f"subset: {raw!r}")
+        while indent <= stack[-1][0]:
+            stack.pop()
+        parent = stack[-1][1]
+        scalar_indent = indent
+        if not value:
+            parent[key] = {}
+            stack.append((indent, parent[key]))
+            scalar_indent = None
+        elif value.startswith("["):
+            if not value.endswith("]"):
+                raise ValueError(f"line {lineno}: unterminated list: {raw!r}")
+            inner = value[1:-1].strip()
+            parent[key] = [_scalar(v) for v in inner.split(",")] if inner else []
+        else:
+            parent[key] = _scalar(value)
+    return _empty_to_null(root)
+
+
+def _empty_to_null(d: dict) -> dict:
+    """``key:`` with nothing nested under it is null in YAML."""
+    return {k: (_empty_to_null(v) or None) if isinstance(v, dict) else v
+            for k, v in d.items()}
 
 
 def load_yaml(path: str | Path) -> Config:
     """Load a reference-layout YAML (NN_BSS.yml style) into a typed Config."""
-    import yaml
-
-    with open(path) as f:
-        raw = yaml.safe_load(f)
+    raw = parse_yaml(Path(path).read_text())
 
     stft_raw = raw.get("STFT", {})
     stft = StftConfig(

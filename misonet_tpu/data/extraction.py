@@ -13,6 +13,7 @@ the reference's Pool(cpu_count()) (SMS_WSJ.py:276-280).
 from __future__ import annotations
 
 import dataclasses
+import multiprocessing
 import os
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
@@ -285,7 +286,10 @@ def extract_corpus(
             stacklevel=2,
         )
     if workers and workers > 1:
-        with ProcessPoolExecutor(max_workers=workers) as pool:
+        # spawn, not fork: the caller may already have started a GPU runtime
+        # and its threads, which a forked child would inherit half-alive
+        ctx = multiprocessing.get_context("spawn")
+        with ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as pool:
             counts = list(
                 pool.map(
                     _extract_one,

@@ -25,7 +25,6 @@ import numpy as np
 from misonet_tpu.beamforming.mvdr import mvdr_beamform
 from misonet_tpu.config import DatasetConfig, StftConfig
 from misonet_tpu.inference.separate import make_full_array_decode
-from misonet_tpu.ops.complex_utils import to_host
 from misonet_tpu.ops.stft import stft_scaled
 
 
@@ -64,7 +63,7 @@ def precompute_enhance_features(
         idxs = list(range(start, start + batch_size))
         mix = np.stack([ds[i]["mix"] for i in idxs])
         miso1, bf = features(jnp.asarray(mix))
-        miso1, bf = to_host(miso1), to_host(bf)
+        miso1, bf = np.asarray(miso1), np.asarray(bf)
         for j, i in enumerate(idxs):
             out = ds.files[i].with_suffix(".feat.npz")
             np.savez(out, miso1=miso1[j], bf=bf[j])
@@ -74,6 +73,6 @@ def precompute_enhance_features(
         mix = ds[i]["mix"][None]
         miso1, bf = features(jnp.asarray(mix))
         out = ds.files[i].with_suffix(".feat.npz")
-        np.savez(out, miso1=to_host(miso1)[0], bf=to_host(bf)[0])
+        np.savez(out, miso1=np.asarray(miso1)[0], bf=np.asarray(bf)[0])
         written += 1
     return written

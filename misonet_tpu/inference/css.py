@@ -3,7 +3,7 @@ streaming covariance updates (BASELINE.json config 5).
 
 The reference handles long recordings by time-chunking plus one
 full-utterance SCM on the host (tester.py:426-441, SURVEY.md §5
-"long-context").  This module is the streaming TPU-native generalization:
+"long-context").  This module is the streaming on-device generalization:
 audio arrives in fixed 4 s blocks; each block runs the MISO1 decode; a
 running exponentially-weighted (or cumulative) SCM pair per speaker feeds an
 MVDR whose weights adapt as evidence accumulates; block outputs are either
@@ -16,7 +16,9 @@ so the whole per-block update is one jitted function — usable online.
 
 from __future__ import annotations
 
-import flax.struct
+import dataclasses
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,7 +35,13 @@ from misonet_tpu.ops.complex_utils import ceinsum
 from misonet_tpu.ops.stft import istft_scaled, stft_scaled
 
 
-class CSSState(flax.struct.PyTreeNode):
+@functools.partial(
+    jax.tree_util.register_dataclass,
+    data_fields=["source_scm", "noise_scm", "frames", "prev_mag"],
+    meta_fields=[],
+)
+@dataclasses.dataclass(frozen=True)
+class CSSState:
     """Running per-speaker SCM accumulators + previous-block magnitudes for
     chaining speaker alignment across blocks."""
 
@@ -68,12 +76,7 @@ class StreamingCSS:
         cfg, ds = self.stft_cfg, self.ds
         f, c = cfg.num_bins, ds.num_ch_utilize
         t = cfg.num_frames(ds.chunk_samples)
-        # complex zeros assembled ON DEVICE: a host-side complex64 constant
-        # would need a complex device_put, which is UNIMPLEMENTED on this
-        # TPU backend (PERF.md round-1 backend gaps) — found by the
-        # real-chip CSS smoke (scripts/smoke_tpu_css.py)
-        zr = jnp.zeros((num_spks, f, c, c), jnp.float32)
-        z = jax.lax.complex(zr, zr)
+        z = jnp.zeros((num_spks, f, c, c), jnp.complex64)
         return CSSState(z, z, jnp.float32(0.0), jnp.zeros((num_spks, t, f)))
 
     def _build_step(self):

@@ -11,8 +11,8 @@ they differ only in input channel count and output speaker count
 API: complex spectrogram in, complex spectrogram out, exactly like the
 reference's ``forward(complex STFT) -> complex STFT`` (model.py:76-111).
 Internally complex is handled as stacked real channels in the same
-(all-real, all-imag) order as the reference (model.py:80,:105-106), but laid
-out NHWC ([B, T, F, C]) for the TPU MXU instead of torch's NCHW.
+(all-real, all-imag) order as the reference (model.py:80,:105-106), laid
+out NHWC ([B, T, F, C]) instead of torch's NCHW.
 
 Architecture (reference model.py:40-73 + NN_BSS.yml:120-123):
 
@@ -26,217 +26,149 @@ Architecture (reference model.py:40-73 + NN_BSS.yml:120-123):
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
 
 from misonet_tpu.config import ModelConfig
 from misonet_tpu.models.blocks import (
     ConvBlock,
-    DeconvBlock,
     ConvTranspose2dTorch,
+    DeconvBlock,
     DenseBlock,
     TemporalConvNet,
 )
-from misonet_tpu.models.flat_dense import (
-    DeconvUpFlat,
-    DenseBlockFlat,
-    Enc0Flat,
-    FinalDeconvFlat,
-    TrunkDownFlat,
-    from_flat_bundle,
-    merge_bundles,
-    pick_tile_m,
-    resolve_flat,
-    to_flat_bundle,
-)
 
 
-def _dtype_of(cfg: ModelConfig) -> jnp.dtype:
-    return jnp.dtype(cfg.compute_dtype)
-
-
-class MISONet(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class MISONet:
     """U-Net + TCN complex spectral mapping network.
 
     Input:  complex64 [B, C_in, T, F]   (F = 129 for the 8 kHz config)
     Output: complex64 [B, num_spks, T, F]
-    """
+
+    ``init(key, mixture) -> {"params": tree}``; ``apply(variables,
+    mixture)`` takes what ``init`` returned.  ``sp_mesh`` (a
+    jax.sharding.Mesh) routes the TCN through the sequence-parallel path
+    when ``cfg.sequence_parallel`` is set."""
 
     cfg: ModelConfig
     num_spks: int = 2
-    # Mesh for the sequence-parallel TCN (cfg.sequence_parallel); static
-    # model attribute like cfg (jax.sharding.Mesh is hashable).
     sp_mesh: object = None
 
-    @nn.compact
-    def __call__(self, mixture: jnp.ndarray) -> jnp.ndarray:
-        assert mixture.ndim == 4, f"expected [B, C, T, F], got {mixture.shape}"
-        dtype = _dtype_of(self.cfg)
-        nb = self.cfg.num_bottleneck
-        en = list(self.cfg.en_channels)
-        de = list(self.cfg.de_channels) + [2 * self.num_spks]
-        assert len(en) == nb and len(de) == nb + 1
+    def _blocks(self, in_ch: int) -> dict:
+        """name -> (block, input channels), in forward order.  ``in_ch`` is
+        the stacked real channel count (2 x complex input channels)."""
+        cfg = self.cfg
+        dtype = cfg.compute_dtype
+        nb = cfg.num_bottleneck
+        en = list(cfg.en_channels)
+        de = list(cfg.de_channels) + [2 * self.num_spks]
+        if len(en) != nb or len(de) != nb + 1:
+            raise ValueError(f"channel plan does not match {nb} levels: {cfg}")
 
-        # Complex -> stacked real channels (channel-major, like the input).
-        x_cm = jnp.concatenate([mixture.real, mixture.imag], axis=1)
-
-        # --- encoder ---------------------------------------------------
-        # Flat path: levels 0-4 stay in the lane-flattened bundle form end
-        # to end — enc0's trunk conv reads the channel-major input
-        # directly (no NHWC transpose at all), the strided trunk convs,
-        # DenseBlocks, and skip hand-offs all operate on raw tensors + IN
-        # statistics, with no NHWC materialization between the input and
-        # enc5.
-        flat = resolve_flat(
-            self.cfg.flat_dense,
-            num_bins=mixture.shape[3], nb=nb, en=en, de_full=de,
-        )
-        precise = self.cfg.compute_dtype == "float32"
-        fdt = jnp.float32 if precise else jnp.bfloat16
-        # int8 DenseBlock matmuls (decode-only, ModelConfig.quant_int8)
-        qnt = bool(getattr(self.cfg, "quant_int8", False)) and not precise
-        if not flat:
-            x = x_cm.transpose(0, 2, 3, 1).astype(dtype)  # [B, T, F, 2C]
-        skips = []       # NHWC arrays, or (bundle, f, tile) on the flat path
-        bundle = None
-        tc = fc = tile = None
+        blocks, ch = {}, in_ch
         for i in range(nb):
             freq_stride = 1 if i in (0, nb - 1) else 2
-            if flat and i == 0:
-                tc, fc = x_cm.shape[2], mixture.shape[3] - 2
-                tile = pick_tile_m(tc, fc, en[0], en[0], en[0],
-                                   precise=precise)
-                # enc0's trunk has no ELU/IN (reference init_Conv2d_,
-                # model.py:401-406): consumed as-is -> identity stats
-                bundle = Enc0Flat(en[0], name="enc0")(
-                    x_cm, t=tc, tile_m=tile, precise=precise
-                )
-                bundle = DenseBlockFlat(
-                    en[0], en[0], name="enc0_dense"
-                )(bundle, t=tc, f=fc, tile_m=tile, precise=precise,
-                  quant=qnt)
-                skips.append((bundle, fc, tile))
-                continue
-            if flat and 1 <= i <= 4:
-                f_out = (fc - 3) // 2 + 1
-                tile_out = pick_tile_m(tc, f_out, en[i], en[i], en[i],
-                                       precise=precise)
-                bundle = TrunkDownFlat(en[i], name=f"enc{i}")(
-                    bundle, t=tc, f_in=fc, tile_in=tile, tile_out=tile_out,
-                    precise=precise,
-                )
-                fc, tile = f_out, tile_out
-                bundle = DenseBlockFlat(
-                    en[i], en[i], name=f"enc{i}_dense"
-                )(bundle, t=tc, f=fc, tile_m=tile, precise=precise,
-                  quant=qnt)
-                skips.append((bundle, fc, tile))
-                continue
-            if flat and i == 5:
-                x = from_flat_bundle(bundle, tc, fc, dtype, tile_m=tile)
-            x = ConvBlock(
-                en[i],
-                strides=(1, freq_stride),
-                act_norm=(i != 0),
-                dtype=dtype,
-                name=f"enc{i}",
-            )(x)
+            blocks[f"enc{i}"] = (
+                ConvBlock(en[i], strides=(1, freq_stride), act_norm=i != 0,
+                          dtype=dtype),
+                ch,
+            )
+            ch = en[i]
             if i < 5:
-                x = DenseBlock(
-                    en[i], en[i], dtype=dtype, name=f"enc{i}_dense"
-                )(x)
-            skips.append(x)
+                blocks[f"enc{i}_dense"] = (DenseBlock(ch, ch, dtype=dtype), ch)
+        blocks["tcn"] = (self._tcn(), ch)
+        ch = cfg.tcn_channels
+        for i in range(nb):
+            ch += en[nb - 1 - i]                    # skip concatenation
+            if i >= 2:
+                blocks[f"dec{i}_dense"] = (
+                    DenseBlock(ch // 2, ch, dtype=dtype), ch
+                )
+            if i == nb - 1:
+                dec = ConvTranspose2dTorch(de[i + 1], strides=(1, 1),
+                                           dtype=dtype)
+            else:
+                dec = DeconvBlock(de[i + 1], strides=(1, 1 if i == 0 else 2),
+                                  dtype=dtype)
+            blocks[f"dec{i}"] = (dec, ch)
+            ch = de[i + 1]
+        return blocks
 
-        # --- TCN bottleneck ([B, T, 1, C] -> [B, T, C]) -----------------
-        b, t, f_bott, c = x.shape
-        assert f_bott == 1, (
-            f"bottleneck frequency axis must reduce to 1, got {f_bott} "
-            f"(input F must be 129 for the default 7-block plan)"
-        )
-        if self.cfg.sequence_parallel and self.sp_mesh is not None:
+    def _tcn(self):
+        cfg = self.cfg
+        if cfg.sequence_parallel and self.sp_mesh is not None:
             from misonet_tpu.parallel.tcn_sp import TemporalConvNetSP
 
-            h = TemporalConvNetSP(
-                repeats=self.cfg.tcn_repeats,
-                blocks=self.cfg.tcn_blocks,
-                features=self.cfg.tcn_channels,
-                norm_type=self.cfg.norm_type,
+            return TemporalConvNetSP(
+                repeats=cfg.tcn_repeats, blocks=cfg.tcn_blocks,
+                features=cfg.tcn_channels, norm_type=cfg.norm_type,
                 mesh=self.sp_mesh,
-                name="tcn",
-            )(x[:, :, 0, :])
-        else:
-            h = TemporalConvNet(
-                repeats=self.cfg.tcn_repeats,
-                blocks=self.cfg.tcn_blocks,
-                features=self.cfg.tcn_channels,
-                norm_type=self.cfg.norm_type,
-                dtype=dtype,
-                name="tcn",
-            )(x[:, :, 0, :])
-        x = h[:, :, None, :]
+            )
+        return TemporalConvNet(
+            repeats=cfg.tcn_repeats, blocks=cfg.tcn_blocks,
+            features=cfg.tcn_channels, norm_type=cfg.norm_type,
+            dtype=cfg.compute_dtype,
+        )
 
-        # --- decoder with skip concatenation ----------------------------
-        # Flat path: from dec2 on, the decoder tensor, the skip concat
-        # (logical — separate tensors, no copy), the DenseBlock, and the
-        # frequency-up deconvs all stay in bundle form; NHWC reappears
-        # only for the final stride-1 transpose conv.
-        bundle = None
-        for i in range(nb):
-            skip = skips[nb - 1 - i]
-            if i >= nb - 5 and flat:
-                skip_b, fc, tile = skip
-                if i == nb - 5:  # entering the flat pipeline from the
-                    # last XLA decoder level's output
-                    assert x.shape[2] == fc, (x.shape, fc)
-                    bundle = to_flat_bundle(
-                        x, normalized=True, tile_m=tile, dtype=fdt
-                    )
-                merged = merge_bundles(bundle, skip_b)
-                cin = sum(t_.shape[1] for t_ in merged[0])
-                bundle = DenseBlockFlat(
-                    cin // 2, cin, name=f"dec{i}_dense"
-                )(merged, t=tc, f=fc, tile_m=tile, precise=precise,
-                  quant=qnt)
-                if i == nb - 1:
-                    # final bare transpose conv fused on the flat layout;
-                    # output assembled channel-major directly (no NHWC)
-                    y, y128 = FinalDeconvFlat(de[i + 1], name=f"dec{i}")(
-                        bundle, t=tc, f=fc, tile_m=tile, precise=precise
-                    )
-                    b = y.shape[0]
-                    main = y[:, :, tile : tile + tc * (fc + 1)].reshape(
-                        b, de[i + 1], tc, fc + 1
-                    ).astype(jnp.float32)
-                    out = jnp.concatenate(
-                        [main, y128.astype(jnp.float32)[:, :, :, None]],
-                        axis=3,
-                    )  # [B, 2*num_spks, T, 129]
-                    real, imag = jnp.split(out, 2, axis=1)
-                    return jax.lax.complex(real, imag)
-                tile_next = skips[nb - 2 - i][2]
-                bundle = DeconvUpFlat(de[i + 1], name=f"dec{i}")(
-                    bundle, t=tc, f_in=fc, tile_in=tile,
-                    tile_out=tile_next, precise=precise,
-                )
+    def init(self, key, mixture) -> dict:
+        """Block i from key i.  Blocks of one configuration (e.g. the
+        encoder's equal DenseBlocks) are drawn in one vmap over their keys:
+        the same values, from a smaller program to compile."""
+        blocks = self._blocks(2 * mixture.shape[1])
+        keys = dict(zip(blocks, jax.random.split(key, len(blocks))))
+        groups: dict = {}
+        for name, spec in blocks.items():
+            groups.setdefault(spec, []).append(name)
+        params = {}
+        for (blk, in_ch), names in groups.items():
+            if len(names) == 1:
+                params[names[0]] = blk.init(keys[names[0]], in_ch)
                 continue
-            elif i >= 2:
-                x = jnp.concatenate([x, skip], axis=-1)
-                cin = x.shape[-1]
-                x = DenseBlock(
-                    cin // 2, cin, dtype=dtype, name=f"dec{i}_dense"
-                )(x)
-            else:
-                x = jnp.concatenate([x, skip], axis=-1)
-            if i == nb - 1:
-                x = ConvTranspose2dTorch(
-                    de[i + 1], strides=(1, 1), dtype=dtype, name=f"dec{i}"
-                )(x)
-            else:
-                freq_stride = 1 if i == 0 else 2
-                x = DeconvBlock(
-                    de[i + 1], strides=(1, freq_stride), dtype=dtype, name=f"dec{i}"
-                )(x)
+            stacked = jax.vmap(lambda k, blk=blk, c=in_ch: blk.init(k, c))(
+                jnp.stack([keys[n] for n in names]))
+            for i, name in enumerate(names):
+                params[name] = jax.tree.map(lambda a, i=i: a[i], stacked)
+        return {"params": {name: params[name] for name in blocks}}
+
+    def apply(self, variables: dict, mixture: jnp.ndarray) -> jnp.ndarray:
+        if mixture.ndim != 4:
+            raise ValueError(f"expected [B, C, T, F], got {mixture.shape}")
+        params = variables["params"]
+        blocks = self._blocks(2 * mixture.shape[1])
+        nb = self.cfg.num_bottleneck
+
+        def run(name, x):
+            return blocks[name][0].apply(params[name], x)
+
+        # Complex -> stacked real channels (channel-major, like the input),
+        # then NHWC.
+        x = jnp.concatenate([mixture.real, mixture.imag], axis=1)
+        x = x.transpose(0, 2, 3, 1).astype(self.cfg.compute_dtype)
+
+        skips = []
+        for i in range(nb):
+            x = run(f"enc{i}", x)
+            if f"enc{i}_dense" in blocks:
+                x = run(f"enc{i}_dense", x)
+            skips.append(x)
+
+        # TCN bottleneck ([B, T, 1, C] -> [B, T, C])
+        if x.shape[2] != 1:
+            raise ValueError(
+                f"bottleneck frequency axis must reduce to 1, got "
+                f"{x.shape[2]} (F={mixture.shape[3]} does not fit the "
+                f"{nb}-level plan)"
+            )
+        x = run("tcn", x[:, :, 0, :])[:, :, None, :]
+
+        for i in range(nb):
+            x = jnp.concatenate([x, skips[nb - 1 - i]], axis=-1)
+            if f"dec{i}_dense" in blocks:
+                x = run(f"dec{i}_dense", x)
+            x = run(f"dec{i}", x)
 
         # NHWC -> NCHW, stacked real -> complex (model.py:103-111).
         x = x.transpose(0, 3, 1, 2).astype(jnp.float32)

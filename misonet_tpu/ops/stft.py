@@ -15,7 +15,7 @@ also the scipy-scaled variants (``stft`` / ``istft``) for drop-in parity
 tests.
 
 Everything here is jit-able, batched over arbitrary leading axes, and runs on
-TPU: framing is 4 static slices (nperseg == 4*hop), the FFT is XLA's rfft,
+the device: framing is 4 static slices (nperseg == 4*hop), the FFT is XLA's rfft,
 and overlap-add is a phase-decomposed shifted sum — no gathers, no scatters,
 no host round trips (the reference runs all of this on CPU inside DataLoader
 workers, SURVEY.md §3.2).

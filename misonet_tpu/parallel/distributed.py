@@ -2,13 +2,13 @@
 
 The reference has no distributed story (single GPU, SURVEY.md §2.10); this
 is the multi-host entry: call :func:`initialize` once at process start on
-every host of a pod slice, then build the mesh with parallel.make_mesh()
+every host of a multi-host job, then build the mesh with parallel.make_mesh()
 (which sees all devices across hosts) and shard per-host input with
 (host_index(), host_count()) in the data layer.
 
-Environment conventions follow jax.distributed.initialize: on TPU pods the
-coordinator/process ids auto-detect from the TPU metadata; elsewhere set
-JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES, JAX_PROCESS_ID.
+Environment conventions follow jax.distributed.initialize: set
+JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES, JAX_PROCESS_ID (a cluster
+manager that JAX detects, such as SLURM, may supply them instead).
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ The reference is strictly single-GPU (run.py:68: ``.cuda(gpu_num)``; no
 torch.distributed anywhere — SURVEY.md §2.10).  Here distribution is a
 first-class component: a 1-D ``data`` mesh over all devices, batches sharded
 along it, parameters replicated, and gradient reduction left to XLA's
-partitioner (it inserts the psum over ICI from the sharding annotations —
+partitioner (it inserts the psum over the device interconnect from the sharding annotations —
 the scaling-book recipe: pick a mesh, annotate shardings, let XLA insert
 collectives).
 

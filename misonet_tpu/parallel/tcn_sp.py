@@ -1,6 +1,6 @@
 """Sequence-parallel TCN: time-axis sharding with halo exchange.
 
-For long-form utterances whose frame count exceeds one chip's appetite, the
+For long-form utterances whose frame count exceeds one device's memory, the
 TCN bottleneck can run with its time axis sharded over a mesh axis
 (SURVEY.md §5 long-context: receptive field ~2·sum(2^x)·2 frames, halo
 exchange of the dilation depth per side).  This module reimplements the
@@ -19,15 +19,15 @@ Outputs match the unsharded TCN bit-for-tolerance (tests/test_tcn_sp.py).
 
 from __future__ import annotations
 
+import dataclasses
 from functools import partial
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from misonet_tpu.config import ModelConfig
-from misonet_tpu.models.blocks import EPS_GLN, EPS_IN
+from misonet_tpu.models.blocks import EPS_GLN, EPS_IN, TemporalConvNet
 
 
 def _halo_exchange(x: jnp.ndarray, halo: int, axis: str) -> jnp.ndarray:
@@ -126,7 +126,7 @@ def tcn_time_sharded(
     """Run the TCN with its time axis sharded over ``mesh``.
 
     tcn_params: the 'tcn' subtree of MISONet params
-                (params['params']['tcn']);
+                (params['params']['tcn']) or a TemporalConvNet's init;
     x: [B, T, C] with T divisible by the mesh axis size.
     Returns [B, T, C] equal to the unsharded TemporalConvNet output."""
     axis = axis or mesh.axis_names[0]
@@ -144,82 +144,14 @@ def tcn_time_sharded(
     return fn(x)
 
 
-# ---------------------------------------------------------------------------
-# Flax front-end: checkpoint-interchangeable with models.blocks.
-# TemporalConvNet (same param tree), computation routed through the
-# shard_map body above.  Selected by ModelConfig.sequence_parallel.
-# ---------------------------------------------------------------------------
-
-
-class _Kernel(nn.Module):
-    shape: tuple
-
-    @nn.compact
-    def __call__(self):
-        return self.param(
-            "kernel", nn.initializers.lecun_normal(), self.shape, jnp.float32
-        )
-
-
-class _PReLUParam(nn.Module):
-    @nn.compact
-    def __call__(self):
-        return self.param("alpha", nn.initializers.constant(0.25), (),
-                          jnp.float32)
-
-
-class _GLNParams(nn.Module):
-    c: int
-
-    @nn.compact
-    def __call__(self):
-        gamma = self.param("gamma", nn.initializers.ones, (1, 1, self.c),
-                           jnp.float32)
-        beta = self.param("beta", nn.initializers.zeros, (1, 1, self.c),
-                          jnp.float32)
-        return gamma, beta
-
-
-class _DSConvParams(nn.Module):
-    """Parameter tree of blocks.DepthwiseSeparableConv
-    (depthwise/kernel, PReLU_0/alpha, GlobalLayerNorm_0/{gamma,beta},
-    pointwise/kernel)."""
-
-    c: int
-
-    @nn.compact
-    def __call__(self):
-        dw = _Kernel((3, 1, self.c), name="depthwise")()
-        alpha = _PReLUParam(name="PReLU_0")()
-        gamma, beta = _GLNParams(self.c, name="GlobalLayerNorm_0")()
-        pw = _Kernel((1, self.c, self.c), name="pointwise")()
-        return {
-            "depthwise": {"kernel": dw},
-            "PReLU_0": {"alpha": alpha},
-            "GlobalLayerNorm_0": {"gamma": gamma, "beta": beta},
-            "pointwise": {"kernel": pw},
-        }
-
-
-class _BlockParams(nn.Module):
-    c: int
-
-    @nn.compact
-    def __call__(self):
-        return {
-            "DepthwiseSeparableConv_0": _DSConvParams(
-                self.c, name="DepthwiseSeparableConv_0")(),
-            "DepthwiseSeparableConv_1": _DSConvParams(
-                self.c, name="DepthwiseSeparableConv_1")(),
-        }
-
-
-class TemporalConvNetSP(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class TemporalConvNetSP:
     """Sequence-parallel TemporalConvNet: same parameters/numerics as the
-    local module (blocks.TemporalConvNet), time axis sharded over
-    ``mesh`` with halo exchange + collective norm statistics.  Stats run
-    fp32 like the local path; convs too (the TCN is <5% of model FLOPs —
-    long-form T is where this path matters, not MXU saturation)."""
+    local block (blocks.TemporalConvNet), time axis sharded over ``mesh``
+    with halo exchange + collective norm statistics.  Selected by
+    ModelConfig.sequence_parallel.  Stats run fp32 like the local path;
+    convs too (the TCN is <5% of model FLOPs — long-form T is where this
+    path matters)."""
 
     repeats: int
     blocks: int
@@ -228,17 +160,16 @@ class TemporalConvNetSP(nn.Module):
     mesh: Mesh
     axis: str | None = None
 
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
-        assert self.norm_type == "IN", (
-            "sequence-parallel TCN implements the production IN outer norm"
-        )
-        params = {
-            f"repeat{r}_block{b}": _BlockParams(
-                self.features, name=f"repeat{r}_block{b}")()
-            for r in range(self.repeats)
-            for b in range(self.blocks)
-        }
+    def init(self, key, in_ch: int) -> dict:
+        return TemporalConvNet(
+            self.repeats, self.blocks, self.features, self.norm_type
+        ).init(key, in_ch)
+
+    def apply(self, params: dict, x: jnp.ndarray) -> jnp.ndarray:
+        if self.norm_type != "IN":
+            raise ValueError(
+                "sequence-parallel TCN implements the production IN outer norm"
+            )
         cfg = ModelConfig(
             tcn_repeats=self.repeats, tcn_blocks=self.blocks,
             tcn_channels=self.features, norm_type=self.norm_type,

@@ -14,9 +14,9 @@ step itself stays a single compiled function.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import optax
@@ -24,10 +24,19 @@ import optax
 from misonet_tpu.config import OptimizerConfig
 
 
-class TrainState(flax.struct.PyTreeNode):
+@functools.partial(
+    jax.tree_util.register_dataclass,
+    data_fields=["step", "params", "opt_state"],
+    meta_fields=[],
+)
+@dataclasses.dataclass(frozen=True)
+class TrainState:
     step: jnp.ndarray
     params: Any
     opt_state: Any
+
+    def replace(self, **changes) -> "TrainState":
+        return dataclasses.replace(self, **changes)
 
 
 def make_optimizer(cfg: OptimizerConfig) -> optax.GradientTransformation:
@@ -74,8 +83,6 @@ def set_learning_rate(state: TrainState, lr: float) -> TrainState:
     ``_replace`` / ``dataclasses.replace``) instead of mutating optax's
     state dict in place, so it stays correct under donated/jitted states
     and across optax versions."""
-    import dataclasses as _dc
-
     def replace(node):
         hp = getattr(node, "hyperparams", None)
         if isinstance(hp, dict) and "learning_rate" in hp:
@@ -85,8 +92,8 @@ def set_learning_rate(state: TrainState, lr: float) -> TrainState:
             )
             if hasattr(node, "_replace"):          # NamedTuple state
                 return node._replace(hyperparams=new_hp)
-            if _dc.is_dataclass(node):
-                return _dc.replace(node, hyperparams=new_hp)
+            if dataclasses.is_dataclass(node):
+                return dataclasses.replace(node, hyperparams=new_hp)
             raise TypeError(
                 f"unsupported inject_hyperparams state type {type(node)!r}"
             )

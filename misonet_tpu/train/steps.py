@@ -3,7 +3,7 @@
 Each factory closes over the model + optimizer and returns a jit-compiled
 step whose batch arguments are sharded over the mesh's ``data`` axis and
 whose state is replicated; XLA's partitioner inserts the gradient psum over
-ICI.  On a single device the same code runs unchanged (DP from day one,
+the device interconnect.  On a single device the same code runs unchanged (DP from day one,
 SURVEY.md §7 item 2).
 
 Reference counterparts: Trainer_Separate._run_one_epoch per-batch body

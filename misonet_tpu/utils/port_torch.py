@@ -5,7 +5,7 @@ same spectrogram out) and (b) migrating any checkpoint trained with the
 reference implementation (reference model.py module structure; layout
 mapping NCHW/OIHW -> NHWC/HWIO).
 
-Mapping summary (torch name -> flax path):
+Mapping summary (torch name -> parameter-tree path):
   encoders.{i}.0.{conv2d|net.0}.*        -> enc{i}/Conv_0
   encoders.{i}.1.conv{n}.0.*             -> enc{i}_dense/conv{n}/Conv_0
   TCN.temporal_conv_net.{r}.{x}.net.{2|5}.net.*
@@ -43,7 +43,7 @@ def port_miso_state_dict(
     tcn_blocks: int = 7,
 ) -> dict:
     """Convert a reference MISO_{1,2,3} torch state_dict (tensors already as
-    numpy arrays) into a flax params dict for models.MISONet."""
+    numpy arrays) into a params dict for models.MISONet."""
     sd = {k: np.asarray(v) for k, v in state_dict.items()}
     params: dict = {}
 

@@ -2,7 +2,7 @@
 //
 // The reference's data path is pure Python (librosa decode + numpy chunking
 // across 70 DataLoader workers, dataloader/SMS_WSJ.py:18-29, data.py:605-616);
-// this library provides the native equivalents the TPU framework feeds from:
+// this library provides the native equivalents the device pipeline feeds from:
 //
 //   * RIFF/WAVE PCM16/PCM32/float32 decode straight into float32 buffers
 //   * single-pass sliding-window chunker (4 s window / 2 s hop with tail

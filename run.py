@@ -71,8 +71,7 @@ def main() -> None:
         type=int,
         default=2,
         help="utterances pipelined through the evaluator: one utterance's "
-        "host half (wav IO/stitch/scoring) overlaps another's device half "
-        "(PERF.md round 5; 4 measured best on the bench box)",
+        "host half (wav IO/stitch/scoring) overlaps another's device half",
     )
     ap.add_argument(
         "--css-overlap",
@@ -92,6 +91,9 @@ def main() -> None:
     args = ap.parse_args()
 
     from misonet_tpu.config import load_yaml
+    from misonet_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     cfg_path = Path(args.config)
     if cfg_path.is_dir():
@@ -198,21 +200,29 @@ def _make_loaders(cfg, trainer_cfg):
 
 def _load_miso1(cfg, model):
     """Cross-stage hand-off: restore frozen MISO1 params (run.py:101-109)."""
-    import jax.numpy as jnp
-
-    from misonet_tpu.ops.stft import stft_scaled
-    from misonet_tpu.train.state import create_train_state, make_optimizer
     from misonet_tpu.utils.checkpoint import load_checkpoint
 
-    probe = jax.lax.complex(
-        jnp.zeros((1, cfg.dataset.num_ch_utilize, 8, cfg.stft.num_bins)),
-        jnp.zeros((1, cfg.dataset.num_ch_utilize, 8, cfg.stft.num_bins)),
-    )
-    params = model.init(jax.random.key(0), probe)
-    state = create_train_state(params, make_optimizer(cfg.optimizer))
     ckpt = Path(cfg.trainer_en.miso1_checkpoint)
-    state, _ = load_checkpoint(ckpt.parent, ckpt.name, state)
+    target = _state_shapes(cfg, model, cfg.dataset.num_ch_utilize)
+    state, _ = load_checkpoint(ckpt.parent, ckpt.name, target)
     return state.params
+
+
+def _state_shapes(cfg, model, num_ch: int):
+    """Shapes and dtypes of a train state for ``model`` (no device work):
+    the restore target of a checkpoint."""
+    import jax.numpy as jnp
+
+    from misonet_tpu.train.state import create_train_state, make_optimizer
+
+    probe = jax.ShapeDtypeStruct((1, num_ch, 8, cfg.stft.num_bins),
+                                 jnp.complex64)
+    return jax.eval_shape(
+        lambda x: create_train_state(
+            model.init(jax.random.key(0), x), make_optimizer(cfg.optimizer)
+        ),
+        probe,
+    )
 
 
 def _train(cfg, args) -> None:
@@ -342,19 +352,11 @@ def _test(cfg, args) -> None:
         joint = args.target == "MISO2"
         enhance_model = make_miso2(cfg.miso2) if joint else make_miso3(cfg.miso3)
         # enhance params loaded from its own save_folder 'best'
-        import jax.numpy as jnp
-
-        from misonet_tpu.train.state import create_train_state, make_optimizer
         from misonet_tpu.utils.checkpoint import load_checkpoint
 
         cin = ds.num_ch_utilize + (2 * ds.num_spks if joint else 2)
-        probe = jax.lax.complex(
-            jnp.zeros((1, cin, 8, cfg.stft.num_bins)),
-            jnp.zeros((1, cin, 8, cfg.stft.num_bins)),
-        )
-        params = enhance_model.init(jax.random.key(0), probe)
-        state = create_train_state(params, make_optimizer(cfg.optimizer))
-        state, _ = load_checkpoint(cfg.trainer_en.save_folder, "best", state)
+        target = _state_shapes(cfg, enhance_model, cin)
+        state, _ = load_checkpoint(cfg.trainer_en.save_folder, "best", target)
         enhance_params = state.params
 
     ev = CascadeEvaluator(

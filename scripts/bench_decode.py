@@ -1,37 +1,37 @@
 """Inference-pipeline throughput: the full-array circular-shift decode
 (reference MISO1_Inference, tester.py:580-634 — M model forwards + PIT
-alignment per chunk) in audio-s/s/chip, scan protocol as bench.py.
+alignment per chunk) in audio-s/s on one device.
 
 This is the Tester hot loop a production deployment runs per utterance;
 the forward bench times one plain forward, this times the whole decode
-(M=6 rolled forwards batched into one, slot alignment included)."""
+(M=6 rolled forwards batched into one, slot alignment included).
+
+Run:  python scripts/bench_decode.py
+"""
 from __future__ import annotations
 
 import sys
 import time
-from functools import partial
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import jax
-import jax.numpy as jnp
-
-jax.config.update("jax_compilation_cache_dir", "/tmp/misonet_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from misonet_tpu.config import ModelConfig, StftConfig
 from misonet_tpu.inference.separate import make_full_array_decode
 from misonet_tpu.models import make_miso1
+from misonet_tpu.utils.cache import enable_compile_cache
 
 
 def main() -> None:
+    enable_compile_cache()
     stft_cfg = StftConfig()
     t = stft_cfg.num_frames(int(4.0 * stft_cfg.fs))
     f = stft_cfg.num_bins
-    b, c = 4, 6
+    b, c, iters = 4, 6, 10
 
-    model = make_miso1(ModelConfig(compute_dtype="bfloat16", flat_dense="auto"))
+    model = make_miso1(ModelConfig())
     kr, ki, kp = jax.random.split(jax.random.key(0), 3)
     mix = jax.lax.complex(
         jax.random.normal(kr, (b, c, t, f)), jax.random.normal(ki, (b, c, t, f))
@@ -39,27 +39,16 @@ def main() -> None:
     params = jax.jit(model.init)(kp, mix[:1])
     decode = make_full_array_decode(model, c, ref_ch=0)
 
-    @partial(jax.jit, static_argnums=2)
-    def loop(params, mix, n):
-        def body(carry, _):
-            full = decode(params, mix + carry.astype(mix.dtype))
-            return jnp.abs(full).mean() * 1e-12, ()
-
-        out, _ = jax.lax.scan(body, jnp.float32(0.0), None, length=n)
-        return out
-
-    n_s, n_l = 1, 5
-    float(loop(params, mix, n_s))
-    float(loop(params, mix, n_l))
-    dts = []
-    for _ in range(3):
-        t0 = time.perf_counter(); float(loop(params, mix, n_s)); a = time.perf_counter() - t0
-        t0 = time.perf_counter(); float(loop(params, mix, n_l)); bt = time.perf_counter() - t0
-        dts.append((bt - a) / (n_l - n_s))
-    dt = min(dts)
+    jax.block_until_ready(decode(params, mix))      # compile + warm-up
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = decode(params, mix)
+    jax.block_until_ready(out)
+    dt = (time.perf_counter() - t0) / iters
+    dev = jax.devices()[0]
     print(
-        f"full-array decode (B={b}, M={c} mics): {dt*1e3:.2f} ms/batch "
-        f"= {b*4.0/dt:.1f} audio-s/s/chip"
+        f"{dev.device_kind}: full-array decode (B={b}, M={c} mics): "
+        f"{dt*1e3:.2f} ms/batch = {b*4.0/dt:.1f} audio-s/s"
     )
 
 

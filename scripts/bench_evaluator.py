@@ -1,13 +1,13 @@
 #!/usr/bin/env python
-"""Corpus-scale evaluator throughput (VERDICT r4 weak #2): the FULL
+"""Corpus-scale evaluator throughput: the FULL
 MISO1 -> MVDR -> MISO3 utterance evaluator (CascadeEvaluator) over a
 synthetic on-disk corpus of varied-length utterances, serial vs the
 threaded utterance pipeline (evaluate_corpus workers=2).
 
 The reference's Tester_Beamforming runs M sequential CPU forwards per
-chunk (~0.74 audio-s/s measured, PERF.md r4); this records the whole
+chunk; this records the whole
 evaluator — decode + utterance SCM/MVDR + per-chunk MISO3 + host
-stitch/score — in audio-s/s and utterances/s on the real chip.
+stitch/score — in audio-s/s and utterances/s on the device.
 
 Run:  python scripts/bench_evaluator.py [--utts 16]
 """
@@ -25,14 +25,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/misonet_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 from misonet_tpu.config import DatasetConfig, ModelConfig, StftConfig
 from misonet_tpu.data.extraction import ExtractionSpec
 from misonet_tpu.data.wavio import write_wav
 from misonet_tpu.inference.evaluate import CascadeEvaluator
 from misonet_tpu.models import make_miso1, make_miso3
+from misonet_tpu.utils.cache import enable_compile_cache
+
+DATA = Path(__file__).resolve().parents[1] / ".bench_data"
 
 
 def build_corpus(root: Path, utts: int, fs: int) -> list[ExtractionSpec]:
@@ -62,24 +62,19 @@ def build_corpus(root: Path, utts: int, fs: int) -> list[ExtractionSpec]:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--utts", type=int, default=16)
-    ap.add_argument("--dir", default="/tmp/misonet_eval_bench")
+    ap.add_argument("--dir", default=str(DATA / "eval"))
     args = ap.parse_args()
+    enable_compile_cache()
 
     stft_cfg = StftConfig()
     ds_cfg = DatasetConfig()
-    platform = jax.devices()[0].platform
-    compute = "bfloat16" if platform != "cpu" else "float32"
-    mcfg = ModelConfig(compute_dtype=compute)
+    mcfg = ModelConfig()
     miso1, miso3 = make_miso1(mcfg), make_miso3(mcfg)
     t, f = 16, stft_cfg.num_bins
-    probe1 = jax.lax.complex(
-        jnp.zeros((1, 6, t, f)), jnp.zeros((1, 6, t, f))
-    )
-    probe3 = jax.lax.complex(
-        jnp.zeros((1, 8, t, f)), jnp.zeros((1, 8, t, f))
-    )
-    p1 = jax.jit(miso1.init)(jax.random.key(0), probe1)
-    p3 = jax.jit(miso3.init)(jax.random.key(1), probe3)
+    probe1 = jax.ShapeDtypeStruct((1, 6, t, f), jnp.complex64)
+    probe3 = jax.ShapeDtypeStruct((1, 8, t, f), jnp.complex64)
+    p1 = jax.jit(lambda k: miso1.init(k, probe1))(jax.random.key(0))
+    p3 = jax.jit(lambda k: miso3.init(k, probe3))(jax.random.key(1))
 
     specs = build_corpus(Path(args.dir), args.utts, stft_cfg.fs)
     total_audio = 0.0

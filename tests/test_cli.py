@@ -1,6 +1,7 @@
 """End-to-end CLI smoke test: Extraction -> Train(MISO1) -> Test over a tiny
 synthetic corpus through run.py's code paths (reference run.py modes)."""
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -10,26 +11,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 
-
-@pytest.fixture(scope="module")
-def corpus_and_config(tmp_path_factory):
-    root = tmp_path_factory.mktemp("cli")
-    from misonet_tpu.data.synthetic import synth_mixture
-    from misonet_tpu.data.wavio import write_wav
-
-    obs = root / "corpus" / "observation"
-    src = root / "corpus" / "speech_source"
-    obs.mkdir(parents=True)
-    src.mkdir(parents=True)
-    for u in range(3):
-        d = synth_mixture(u, num_samples=2500, num_ch=3)
-        write_wav(obs / f"utt{u}.wav", d["mix"], 8000)
-        for s in range(2):
-            write_wav(src / f"utt{u}_{s}.wav", d["ref"][s], 8000)
-
-    cfg = root / "tiny.yml"
-    cfg.write_text(f"""
-SMS_WSJ:
+# tiny plan over a corpus at {root}/corpus (3 mics, 4 U-Net levels)
+TINY_CONFIG = """SMS_WSJ:
   rootdir: {root}/corpus/
   fs: 8000
   chunk_time: 0.25
@@ -77,8 +60,34 @@ scheduler:
   factor: 0.5
   patience: 3
   min_lr: 0.000005
-""")
-    return root, cfg
+"""
+
+
+def write_tiny_corpus(root: Path) -> Path:
+    """3 utterances of 3-mic mixtures under root/corpus, plus the tiny
+    config pointing at them; returns the config path."""
+    from misonet_tpu.data.synthetic import synth_mixture
+    from misonet_tpu.data.wavio import write_wav
+
+    obs = root / "corpus" / "observation"
+    src = root / "corpus" / "speech_source"
+    obs.mkdir(parents=True)
+    src.mkdir(parents=True)
+    for u in range(3):
+        d = synth_mixture(u, num_samples=2500, num_ch=3)
+        write_wav(obs / f"utt{u}.wav", d["mix"], 8000)
+        for s in range(2):
+            write_wav(src / f"utt{u}_{s}.wav", d["ref"][s], 8000)
+
+    cfg = root / "tiny.yml"
+    cfg.write_text(TINY_CONFIG.format(root=root))
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def corpus_and_config(tmp_path_factory):
+    root = tmp_path_factory.mktemp("cli")
+    return root, write_tiny_corpus(root)
 
 
 def _run(args, cwd):
@@ -245,3 +254,34 @@ def test_cli_test_css(corpus_and_config):
     wavs = list((root / "css_eval" / "wav_out").rglob("*.wav"))
     # 2 utts x 2 speakers x 2 stages (miso1 + beamformed)
     assert len(wavs) == 8, wavs
+
+
+def test_cli_runs_without_flax_orbax_yaml(tmp_path):
+    """The main path imports none of flax, orbax or PyYAML: with the three
+    blocked, Extraction -> Train MISO1 -> Test MISO1 runs end to end."""
+    cfg = write_tiny_corpus(tmp_path)
+    script = f"""
+import sys
+sys.modules["flax"] = sys.modules["orbax"] = sys.modules["yaml"] = None
+sys.path.insert(0, {str(ROOT)!r})
+import jax
+jax.config.update("jax_platforms", "cpu")
+import importlib.util
+spec = importlib.util.spec_from_file_location("misonet_run", {str(ROOT / "run.py")!r})
+run = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(run)
+for args in (["-m", "Extraction"], ["-m", "Train", "-t", "MISO1"],
+             ["-m", "Test", "-t", "MISO1", "--max-utts", "1"]):
+    sys.argv = ["run.py", "-c", {str(cfg)!r}, "-n", {str(tmp_path / "logs")!r}] + args
+    run.main()
+for name in ("flax", "orbax", "yaml"):
+    assert sys.modules[name] is None, name
+print("BLOCKED-IMPORT FLOW OK")
+"""
+    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "BLOCKED-IMPORT FLOW OK" in proc.stdout
+    assert (tmp_path / "model_result/miso1/best").is_file()
+    assert list((tmp_path / "logs" / "wav_out").rglob("*.wav"))

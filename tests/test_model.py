@@ -103,6 +103,6 @@ def test_conv_transpose_matches_torch_geometry():
     for fin, stride, pad_expected in [(1, 1, 3), (3, 2, 7), (7, 2, 15), (127, 1, 129)]:
         m = ConvTranspose2dTorch(4, strides=(1, stride))
         x = jnp.ones((1, 5, fin, 3))
-        p = m.init(jax.random.key(0), x)
+        p = m.init(jax.random.key(0), x.shape[-1])
         y = m.apply(p, x)
         assert y.shape == (1, 5, pad_expected, 4), (fin, stride, y.shape)

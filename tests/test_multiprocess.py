@@ -10,7 +10,7 @@ shared-memory collectives).
 This is the in-container correctness proxy for the multi-host pod path
 (BASELINE.md north star: >=90% scaling at 2 hosts): the same bootstrap,
 mesh construction, per-process data placement, and collective compilation
-run here, minus the ICI transport.
+run here, minus the device interconnect.
 """
 
 import json

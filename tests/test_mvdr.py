@@ -159,7 +159,7 @@ def test_streaming_scm_equals_full():
 
 def test_chunked_scm_psum_over_mesh():
     """Blocks sharded over the device mesh: psum-reduced SCM must equal the
-    single-device result (ICI collective accumulation, SURVEY.md §2.10.4)."""
+    single-device result (collective accumulation, SURVEY.md §2.10.4)."""
     from jax.sharding import Mesh, PartitionSpec as P
     import numpy as onp
 

@@ -10,7 +10,7 @@ from misonet_tpu.beamforming.mvdr import (
     condition_covariance,
     normalize_unit_power,
 )
-from misonet_tpu.models.blocks import choose_norm
+from misonet_tpu.models.blocks import Norm
 
 
 def _rand_c(rng, shape):
@@ -55,9 +55,9 @@ def test_normalize_unit_power():
 
 
 def test_batch_norm_dispatch():
-    norm = choose_norm("BN")
+    norm = Norm("BN")
     x = jax.random.normal(jax.random.key(0), (4, 16, 8)) * 3 + 1
-    params = norm.init(jax.random.key(1), x)
+    params = norm.init(jax.random.key(1), x.shape[-1])
     y = norm.apply(params, x)
     np.testing.assert_allclose(float(y.mean()), 0.0, atol=1e-4)
     np.testing.assert_allclose(float(y.std()), 1.0, atol=1e-2)

@@ -26,12 +26,12 @@ def test_sharded_tcn_matches_dense():
         norm_type="IN",
     )
     x = jax.random.normal(jax.random.key(0), (B, T, C))
-    params = model.init(jax.random.key(1), x)
+    params = model.init(jax.random.key(1), C)
     dense = model.apply(params, x)
 
     mesh = make_mesh(axis="seq")
     assert mesh.size == 8
-    sharded = tcn_time_sharded(params["params"], x, CFG, mesh)
+    sharded = tcn_time_sharded(params, x, CFG, mesh)
     np.testing.assert_allclose(
         np.asarray(sharded), np.asarray(dense), atol=2e-5, rtol=2e-5
     )
@@ -42,10 +42,10 @@ def test_sharded_tcn_large_dilation_spanning_shards():
     cfg = ModelConfig(tcn_repeats=1, tcn_blocks=4, tcn_channels=8)
     model = TemporalConvNet(repeats=1, blocks=4, features=8, norm_type="IN")
     x = jax.random.normal(jax.random.key(2), (1, 128, 8))
-    params = model.init(jax.random.key(3), x)
+    params = model.init(jax.random.key(3), 8)
     dense = model.apply(params, x)
     mesh = make_mesh(axis="seq")
-    sharded = tcn_time_sharded(params["params"], x, cfg, mesh)
+    sharded = tcn_time_sharded(params, x, cfg, mesh)
     np.testing.assert_allclose(
         np.asarray(sharded), np.asarray(dense), atol=2e-5, rtol=2e-5
     )

@@ -117,82 +117,3 @@ def test_learning_rate_injection(setup):
     assert current_learning_rate(state) == pytest.approx(5e-4)
     step = make_separate_train_step(model, opt)
     state, _ = step(state, mix, ref)  # still runs after LR surgery
-
-
-@pytest.mark.slow
-def test_flat_gradients_match_xla_on_mesh():
-    """Gradient-parity triangle (VERDICT r2 item 10): fused flat-path
-    gradients (interpret mode, precise fp32, single device) must equal the
-    plain-XLA path's gradients computed with the batch sharded over the
-    8-device mesh (psum reduction).  Interpret-mode Pallas lowers to
-    io_callback, which XLA's SPMD partitioner rejects under sharded inputs
-    (side-effecting HLO cannot be replicated), so the flat side runs
-    unsharded — the comparison still pins flat==XLA numerics AND
-    sharded==unsharded gradient reduction in one assertion.  Uses a narrow
-    F=129 plan so the flat geometry predicate holds while staying
-    CPU-sized."""
-    from jax.experimental.pallas import tpu as pltpu
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    # permutation-free loss: with random weights the two speaker slots are
-    # near-tied under uPIT, and fp32-rounding differences between the two
-    # paths can flip the argmin permutation — a gradient discontinuity that
-    # would make this comparison meaningless.
-    from misonet_tpu.losses import loss_enhance
-
-    plan = dict(
-        num_bottleneck=7,
-        en_channels=(8, 8, 8, 8, 8, 16, 16),
-        de_channels=(16, 16, 8, 8, 8, 8, 8),
-        tcn_repeats=1,
-        tcn_blocks=2,
-        tcn_channels=16,
-        compute_dtype="float32",
-    )
-    xla_model = make_miso1(ModelConfig(**plan, flat_dense=False))
-    flat_model = make_miso1(ModelConfig(**plan, flat_dense=True))
-
-    b, c, t, f = 8, 3, 8, 129
-    k1, k2, k3, k4 = jax.random.split(jax.random.key(5), 4)
-    mix = jax.lax.complex(
-        jax.random.normal(k1, (b, c, t, f)), jax.random.normal(k2, (b, c, t, f))
-    )
-    ref = jax.lax.complex(
-        jax.random.normal(k3, (b, 2, t, f)) * 0.1,
-        jax.random.normal(k4, (b, 2, t, f)) * 0.1,
-    )
-    params = xla_model.init(jax.random.key(6), mix)  # trees interchangeable
-
-    mesh = make_mesh()
-    repl = NamedSharding(mesh, P())
-    data = NamedSharding(mesh, P(mesh.axis_names[0]))
-
-    def make_grads(model, sharded):
-        def loss_fn(p, mix, ref):
-            return loss_enhance(model.apply(p, mix), ref)
-
-        shardings = (repl, data, data) if sharded else None
-        return jax.jit(jax.grad(loss_fn), in_shardings=shardings)
-
-    p = replicate(params, mesh)
-    smix, sref = shard_batch((mix, ref), mesh)
-    g_xla = make_grads(xla_model, sharded=True)(p, smix, sref)
-    with pltpu.force_tpu_interpret_mode():
-        g_flat = make_grads(flat_model, sharded=False)(params, mix, ref)
-
-    flat_leaves = jax.tree_util.tree_leaves_with_path(g_flat)
-    xla_map = {
-        jax.tree_util.keystr(k): v
-        for k, v in jax.tree_util.tree_leaves_with_path(g_xla)
-    }
-    assert len(flat_leaves) == len(xla_map)
-    # tolerance scales with the gradient magnitude of the leaf, floored in
-    # absolute terms — near-zero leaves (e.g. gLN beta sums that cancel)
-    # carry pure rounding noise, not signal
-    for key, v in flat_leaves:
-        ref_v = xla_map[jax.tree_util.keystr(key)]
-        scale = float(jnp.abs(ref_v).max())
-        np.testing.assert_allclose(
-            np.asarray(v), np.asarray(ref_v),
-            atol=2e-3 * scale + 1e-6, err_msg=jax.tree_util.keystr(key),
-        )
